@@ -1,11 +1,9 @@
 """Steady-state frame cost: per-frame `run()` vs fused `run_fused()`.
 
-VERDICT r4 #7: at 128^3 the per-frame loop measured ~2.1 s/frame against
-~0.5 s of device work -- the rest is per-program dispatch/executable
-reload through the remote-attach runtime, paid once per frame because
-each frame is its own set of programs.  `run_fused` scans K frames into
-ONE program, so the steady frame cost collapses to device work (solve +
-advection + on-device setup rebuild).
+`run()` dispatches each frame as its own set of programs with host setup
+glue in between; `run_fused` scans K frames into ONE program, so the
+steady frame cost is device work (solve + advection + on-device setup
+rebuild).  Both advection schemes are timed.  Needs a GPU.
 
 Usage: python benchmarks/frames_bench.py [n] [frames] [chunk]
 (defaults 128, 16, 8; prints one JSON line)
@@ -27,14 +25,15 @@ def log(*args):
 
 def main() -> None:
     import jax
-
-    jax.config.update("jax_compilation_cache_dir", "/tmp/gmg_jax_cache")
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
-
     import jax.numpy as jnp
 
     from geometricmultigridpressuresolver_tpu.config import SolverConfig
     from geometricmultigridpressuresolver_tpu.models import sdf, simulate
+    from geometricmultigridpressuresolver_tpu.utils import runtime
+
+    runtime.require_gpu("frames_bench")
+    runtime.enable_compile_cache()
+    log(runtime.describe_device())
 
     n = int(sys.argv[1]) if len(sys.argv) > 1 else 128
     frames = int(sys.argv[2]) if len(sys.argv) > 2 else 16
@@ -84,19 +83,16 @@ def main() -> None:
         phi, velocity, weights, num_frames=frames, dt=dt, config=config,
         chunk=chunk,
     )
-    # block_until_ready does NOT actually block through the remote-attach
-    # runtime (round-5 finding); a value fetch does.
-    float(f_pressure.sum())
+    jax.block_until_ready(f_pressure)
     fused_per_frame = (time.time() - t0) / frames
     log(
         f"run_fused steady (semi-Lagrangian): {fused_per_frame:.3f} s/frame "
         f"over {frames} frames (iters {list(stats['iterations'])})"
     )
 
-    # The TPU-native advection scheme (config.advection="upwind"): the
-    # semi-Lagrangian backtrace is 8 arbitrary-index gathers per field --
-    # scalar-core work, measured ~2 s/frame at 128^3 -- while upwind is
-    # pure VPU stencil arithmetic.
+    # The gather-free advection scheme (config.advection="upwind"): the
+    # semi-Lagrangian backtrace is 8 arbitrary-index gathers per field,
+    # upwind is shift/select stencil arithmetic.
     import dataclasses
 
     config_up = dataclasses.replace(config, advection="upwind")
@@ -109,7 +105,7 @@ def main() -> None:
         phi, velocity, weights, num_frames=frames, dt=dt, config=config_up,
         chunk=chunk,
     )
-    float(u_pressure.sum())
+    jax.block_until_ready(u_pressure)
     upwind_per_frame = (time.time() - t0) / frames
     log(
         f"run_fused steady (upwind): {upwind_per_frame:.3f} s/frame "

@@ -3,7 +3,7 @@ in miniature, runnable on one machine with N spawned processes.
 
 Each process simulates one host with 4 virtual CPU devices; the global
 mesh spans num_processes * 4 devices, so collectives cross the process
-(DCN-analogue) boundary.  Every process builds the SAME small problem
+boundary.  Every process builds the SAME small problem
 deterministically, contributes its own device shards
 (parallel.distributed.distribute_problem), and runs the sharded MGPCG
 solve; process 0 prints one JSON line with the iteration count and
@@ -13,9 +13,9 @@ run.
 Launch (2 hosts on localhost):
     python benchmarks/multihost_dryrun.py --num-processes 2 --process-id 0 &
     python benchmarks/multihost_dryrun.py --num-processes 2 --process-id 1 &
-On a real TPU pod, drop the CPU env below, run one process per host with
-`--coordinator HOST0_IP:PORT`, and the same code scales chips * hosts
-(see README.md "Multi-host").
+On a real cluster, drop the CPU env below and run one process per host
+with `--coordinator HOST0_IP:PORT` (see README.md "Multi-host").  This
+script is a CPU rehearsal; it never opens a GPU.
 """
 
 import argparse
@@ -46,6 +46,10 @@ def main(argv=None):
 
     jax.config.update("jax_cpu_collectives_implementation", "gloo")
     jax.config.update("jax_enable_x64", True)
+
+    from geometricmultigridpressuresolver_tpu.utils import runtime
+
+    runtime.enable_compile_cache()
 
     from geometricmultigridpressuresolver_tpu.parallel import distributed
 

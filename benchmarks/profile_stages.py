@@ -1,42 +1,39 @@
-"""Per-stage profile of the headline solve on the current device.
+"""Per-stage profile of the headline solve on the GPU.
 
 Prints the CG sub-step breakdown (instrumented_solve) and the per-level
 V-cycle stage breakdown (vcycle_stage_times) for an N^3 splash scene.
 Usage: python benchmarks/profile_stages.py [N]
 """
 
+import os
 import sys
 import time
 
-import os
-
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-import jax
-
-jax.config.update("jax_compilation_cache_dir", "/tmp/gmg_jax_cache")
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
-
 import jax.numpy as jnp
-import numpy as np
 
 from geometricmultigridpressuresolver_tpu.config import SolverConfig
 from geometricmultigridpressuresolver_tpu.models import free_surface, sdf
 from geometricmultigridpressuresolver_tpu.utils import (
     instrumented_solve,
+    runtime,
     vcycle_stage_times,
 )
 
 
 def main():
     n = int(sys.argv[1]) if len(sys.argv) > 1 else 256
+    runtime.require_gpu("profile_stages")
+    runtime.enable_compile_cache()
     config = SolverConfig(
         solve_dtype=jnp.float32,
         mg_dtype=jnp.float32,
+        mg_ew_dtype=jnp.bfloat16,
         tolerance=1e-5,
         max_iterations=100,
     )
-    print(f"profiling {n}^3 on {jax.devices()[0]}", flush=True)
+    print(f"profiling {n}^3; {runtime.describe_device()}", flush=True)
     t0 = time.time()
     phi, velocity = sdf.splash_scene((n, n, n), xp=jnp)
     weights = sdf.open_box_weights((n, n, n), xp=jnp)

@@ -7,7 +7,8 @@ Scene: the splash pool/drop liquid plus a solid sphere submerged in the
 pool -- interior Neumann cut-cell faces inside the liquid (reference
 solid-sphere fixture, Source/HDK_TestGeometricMultigrid.cpp:266-343).
 
-Usage: python benchmarks/row2_solid.py [n] [tol]   (defaults 128, 1e-6)
+Usage: python benchmarks/row2_solid.py [n] [tol]   (defaults 128, 1e-6;
+needs a GPU)
 """
 
 from __future__ import annotations
@@ -26,14 +27,15 @@ def log(*args):
 
 def main() -> None:
     import jax
-
-    jax.config.update("jax_compilation_cache_dir", "/tmp/gmg_jax_cache")
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
-
     import jax.numpy as jnp
 
     from geometricmultigridpressuresolver_tpu.config import SolverConfig
     from geometricmultigridpressuresolver_tpu.models import free_surface, sdf
+    from geometricmultigridpressuresolver_tpu.utils import runtime
+
+    runtime.require_gpu("row2_solid")
+    runtime.enable_compile_cache()
+    log(runtime.describe_device())
 
     n = int(sys.argv[1]) if len(sys.argv) > 1 else 128
     tol = float(sys.argv[2]) if len(sys.argv) > 2 else 1e-6

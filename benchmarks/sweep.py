@@ -1,23 +1,20 @@
 """Resolution sweep of the headline free-surface MGPCG solve.
 
-The BASELINE.md config ladder (64^3 ... 512^3) on the current device.
+The BASELINE.md config ladder (64^3 ... 512^3) on the GPU.
 Prints one JSON line per size: solve seconds, CG iterations, DOF/s.
 
 Usage: python benchmarks/sweep.py [sizes...]   (default: 64 128 256)
 """
 
 import json
+import os
 import sys
 import time
-
-import os
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import jax
 
-jax.config.update("jax_compilation_cache_dir", "/tmp/gmg_jax_cache")
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
 
 import jax.numpy as jnp
 import numpy as np
@@ -25,6 +22,7 @@ import numpy as np
 from geometricmultigridpressuresolver_tpu.config import SolverConfig
 from geometricmultigridpressuresolver_tpu.models import free_surface, sdf
 from geometricmultigridpressuresolver_tpu.solver import mgpcg
+from geometricmultigridpressuresolver_tpu.utils import runtime
 
 
 def run(n: int, reps: int = 3, tol: float = 1e-5) -> dict:
@@ -67,18 +65,17 @@ def run(n: int, reps: int = 3, tol: float = 1e-5) -> dict:
         "solve_s": round(best, 4),
         "dof_per_s": round(ndof / best, 1),
     }
-    try:
-        stats = jax.devices()[0].memory_stats()
-        out["hbm_peak_gb"] = round(stats["peak_bytes_in_use"] / 2**30, 2)
-        out["hbm_in_use_gb"] = round(stats["bytes_in_use"] / 2**30, 2)
-    except Exception:
-        pass  # not all runtimes expose memory stats
+    stats = jax.devices()[0].memory_stats()
+    out["peak_gb"] = round(stats["peak_bytes_in_use"] / 2**30, 2)
+    out["in_use_gb"] = round(stats["bytes_in_use"] / 2**30, 2)
     return out
 
 
 def main():
     sizes = [int(a) for a in sys.argv[1:]] or [64, 128, 256]
-    print(f"device: {jax.devices()[0]}", file=sys.stderr, flush=True)
+    runtime.require_gpu("sweep")
+    runtime.enable_compile_cache()
+    print(runtime.describe_device(), file=sys.stderr, flush=True)
     for n in sizes:
         print(json.dumps(run(n)), flush=True)
 

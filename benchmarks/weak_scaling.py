@@ -4,12 +4,11 @@ Scales the grid with the device count (fixed cells per device) and reports
 per-device throughput and weak-scaling efficiency vs the 1-device run --
 the BASELINE.md 512^3-multi-host configuration in harness form.
 
-On real multi-chip hardware this measures ICI halo-exchange overhead; on a
-single-chip or CPU environment pass --virtual N to exercise the identical
-sharded program on N virtual host devices
-(XLA_FLAGS=--xla_force_host_platform_device_count=N), which validates the
-partitioning/collectives and measures the sharding overhead structure,
-not real ICI bandwidth.
+On several GPUs this measures the halo-exchange and reduction overhead of
+the GSPMD-partitioned solve.  --virtual N instead runs the identical
+sharded program on N virtual CPU devices as a CPU rehearsal: it validates
+the partitioning and collectives, and its times are CPU times, labelled
+so in every output line.
 
 Usage:
   python benchmarks/weak_scaling.py [--base 128] [--devices 1 2 4 8] [--virtual 8]
@@ -41,7 +40,6 @@ def main():
 
     import jax
 
-    jax.config.update("jax_compilation_cache_dir", "/tmp/gmg_jax_cache")
     if args.virtual:
         jax.config.update("jax_platforms", "cpu")
 
@@ -57,14 +55,17 @@ def main():
         shard_velocity,
     )
     from geometricmultigridpressuresolver_tpu.solver import mgpcg
+    from geometricmultigridpressuresolver_tpu.utils import runtime
 
+    if not args.virtual:
+        runtime.require_gpu("weak_scaling")
+    runtime.enable_compile_cache()
+    print(runtime.describe_device(), file=sys.stderr, flush=True)
     all_devices = jax.devices()
     counts = args.devices or sorted(
         {1, 2, len(all_devices)} - {0}
     )
     counts = [c for c in counts if c <= len(all_devices)]
-    print(f"devices available: {len(all_devices)} x {all_devices[0].platform}",
-          file=sys.stderr, flush=True)
 
     config = SolverConfig(
         solve_dtype=jnp.float32,
@@ -110,6 +111,8 @@ def main():
         print(
             json.dumps(
                 {
+                    "platform": all_devices[0].platform,
+                    "cpu_rehearsal": bool(args.virtual),
                     "devices": nd,
                     "mesh": [mx, my, mz],
                     "grid": list(shape),

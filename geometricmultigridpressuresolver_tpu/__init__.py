@@ -1,12 +1,12 @@
-"""TPU-native geometric multigrid pressure-Poisson framework.
+"""Geometric multigrid pressure-Poisson framework in JAX.
 
-A from-scratch JAX/XLA/Pallas re-design of the capabilities of
+A from-scratch JAX/XLA re-design of the capabilities of
 rgoldade/GeometricMultigridPressureSolver (McAdams et al. 2010 multigrid
 preconditioned conjugate gradient for free-surface liquid pressure
 projection).  The reference is a Houdini HDK C++ plug-in over tiled sparse
 voxel grids with TBB threading; this framework instead uses dense
-HBM-resident voxel grids masked by cell labels, XLA/Pallas stencil kernels,
-and `jax.sharding` SPMD for multi-chip scaling.
+device-resident voxel grids masked by cell labels, XLA-fused stencils,
+and `jax.sharding` SPMD for multi-device scaling.
 
 Layer map (mirrors reference SURVEY.md section 1):
   L1  utils/, grids.py      -- labels, masks, ghost-fluid weights

@@ -22,8 +22,8 @@ import jax.numpy as jnp
 def _default_solve_dtype():
     """float64 like the reference when x64 is enabled, float32 otherwise.
 
-    JAX silently truncates float64 requests without `jax_enable_x64` (the
-    default on TPU), so defaulting to float64 there would only produce
+    JAX silently truncates float64 requests without `jax_enable_x64` (off
+    by default), so defaulting to float64 there would only produce
     truncation warnings; the resolved default is captured when the config
     object is created.
     """
@@ -75,7 +75,7 @@ class SolverConfig:
     use_gauss_seidel: bool = True
     # Optional interior-smoother override: None derives from
     # use_gauss_seidel; "chebyshev" uses the polynomial smoother
-    # (ops.stencil.chebyshev_smooth; jnp path only) of `chebyshev_degree`.
+    # (ops.stencil.chebyshev_smooth) of `chebyshev_degree`.
     interior_smoother: str | None = None
     chebyshev_degree: int = 2
     jacobi_damping: float = 2.0 / 3.0
@@ -91,18 +91,6 @@ class SolverConfig:
     compact_domain: bool = True
     dirichlet_band: int = 4
     coarse_dof_target: int = 3000
-    # Smoother kernel selection: "auto" uses the fused Pallas smoothing
-    # kernel (ops.pallas_smoother) on TPU for fp32 levels that satisfy its
-    # geometry preconditions, jnp stencils elsewhere; "jnp" forces the
-    # reference-shaped XLA path; "pallas" fails loudly if ineligible.
-    kernel_mode: str = "auto"
-    # Run the Pallas kernels under the interpreter (CPU-executable; used
-    # with kernel_mode="pallas" to validate the kernel paths -- including
-    # the sharded shard_map+halo path -- on virtual device meshes without
-    # TPU hardware, e.g. the driver's multichip dryrun).
-    pallas_interpret: bool = False
-    pallas_block_t: int = 32
-    pallas_block_y: int = 48
     # Storage dtype of the V-cycle's off-diagonal edge weights (None keeps
     # the mg dtype).  bfloat16 halves the largest coefficient arrays' HBM
     # traffic; unit weights (all faces away from the irregular boundary)
@@ -110,90 +98,30 @@ class SolverConfig:
     # preserves operator symmetry exactly, so the V-cycle remains a valid
     # CG preconditioner.  The outer CG operator always stays in solve_dtype.
     mg_ew_dtype: Any = None
-    # Storage dtype of the V-cycle's solution / rhs / residual FIELDS on
-    # levels running the fused smoother kernels (None keeps the mg dtype).
-    # bfloat16 halves the x/b/inv_diag DMA traffic of every smoother pass
-    # stack -- the dominant term of the compute-bound fine-level ledger
-    # (benchmarks/RESULTS.md round-4) -- while the kernel still computes in
-    # fp32 on the VMEM-resident slabs (ops.pallas_smoother._make_kernel
-    # compute_dtype).  The quantization is deterministic and applied
-    # identically on the adjoint-ordered down/up strokes, so the
-    # preconditioner remains the same fixed symmetric(-to-rounding)
-    # operator every CG iteration -- the same argument mg_ew_dtype makes
-    # for the edge weights; the outer CG operator always stays in
-    # solve_dtype, so the CONVERGED ANSWER is unaffected (tolerance is
-    # checked against the fp32/fp64 recurrence).  Only levels whose kernel
-    # flag is True/"padded" narrow; jnp and sharded levels keep mg dtype.
-    mg_field_dtype: Any = None
-    # Transfer operators: "mm" runs restriction/prolongation as per-axis
-    # matmuls on the MXU (exactly adjoint by construction: the prolongation
-    # uses the transposed restriction matrix), "slice" is the shift-based
-    # VPU path, "auto" picks mm on TPU.
-    transfer_mode: str = "auto"
+    # Transfer operators: "slice" is the shift-based stencil form; "mm"
+    # runs restriction/prolongation as per-axis matmuls (exactly adjoint
+    # by construction: the prolongation uses the transposed restriction
+    # matrix).  Same operator, different rounding.
+    transfer_mode: str = "slice"
     # Extra window headroom (units of the exterior padding) so a growing
     # liquid bbox keeps fitting the previous frame's window shape; see
     # free_surface.build_setup(reuse_from=...).
     window_slack: int = 1
     # Device-program granularity of setup (build_setup / build_problem).
     # "fused": window expansion + every hierarchy level + the fine CG
-    # operator compile as ONE program -- fewest dispatches, best on local
-    # runtimes.  "per-level": one program per hierarchy level (plus the
-    # expansion) -- smaller individual programs for environments whose
-    # compile path cannot ingest the fused one (e.g. size-limited
-    # remote-compile tunnels), AND the path that fits the biggest grids:
-    # the fused program's workspace holds every hierarchy intermediate in
-    # one live range, which exhausts HBM at 448^3 (125.8M-cell window)
-    # where the per-level build plus the solve itself fit fine (measured
-    # round 4: 448^3 solves at 32.1M DOF/s per-level; the fused setup
-    # OOMs).  "auto" (default): per-level above SETUP_FUSION_AUTO_CELLS
-    # expanded-window cells, fused otherwise -- fused is measured safe at
-    # 384^3 (95.4M cells) and OOM at 448^3, so the threshold sits between.
+    # operator compile as ONE program -- fewest compiles and dispatches,
+    # but its workspace holds every hierarchy intermediate in one live
+    # range.  "per-level": one program per hierarchy level (plus the
+    # expansion), so only one level's workspace is live at a time.
+    # "auto" (default): fused when its compiled workspace fits the
+    # device's free memory, per-level otherwise (mg.setup_fusion_resolved).
     setup_fusion: str = "auto"
-    # Padded kernel views for coarse levels.  A coarse level often misses
-    # the fused smoother's geometry preconditions (exterior margin < the
-    # halo depth in dims 0/1, interior extents not multiples of 8, lane
-    # extent not a multiple of 128) even though its cell count still makes
-    # the kernel worthwhile.  All three are fixable by appending EXTERIOR
-    # cells: zero coefficients keep the smoothing arithmetic identical on
-    # the natural region (ops.pallas_smoother.padded_view_spec), so the
-    # level's coefficients are padded once per solve and x/b are
-    # padded/sliced around each kernel call (~cells*4B copies, microseconds
-    # at HBM bandwidth).  The guards keep this to levels big enough to pay
-    # for a kernel launch and cheap enough to pad.
-    #
-    # Default OFF: the round-4 TPU A/B measured the padded path a wash at
-    # 256^3 (28.19M vs 28.22M DOF/s) and a clear regression at 128^3
-    # (0.050 s vs 0.043 s, 15.3M vs 17.8M DOF/s) -- the padded kernel on
-    # the 256^3 hierarchy's L2 runs 0.341 ms vs 0.295 ms for the jnp
-    # block (benchmarks/RESULTS.md, round-4 section): at coarse-level
-    # sizes the kernel's DMA orchestration overhead exceeds what XLA's
-    # fused stencil already achieves, and the pad/slice wrappers add HBM
-    # copies on top.  The mechanism stays available for hierarchies whose
-    # mid levels are big enough to profit (opt in explicitly).
-    pallas_pad_coarse: bool = False
-    pallas_pad_min_cells: int = 200_000
-    pallas_pad_max_ratio: float = 1.5
-    # Band-strip boundary passes (ops.pallas_smoother.split_strip_blocks):
-    # active slabs whose boundary band lies entirely in the two z-edge
-    # strips of this many lanes run 'b' passes computing ONLY the strips
-    # -- identical arithmetic (the pass is the exact identity off the
-    # band; compiler FMA contraction may differ by ~1 ulp) at a fraction
-    # of the VPU work, on a kernel RESULTS.md shows is compute-bound.
-    # 0 disables.  On hardware use a multiple of 128 (the vreg lane
-    # width); the z walls guarantee band cells at the lane edges of every
-    # liquid column, which is where this band actually lives for slabs
-    # away from the free surface.  Default ON at 128: measured +5.3% at
-    # 448^3 (32.1 -> 33.8M DOF/s) and +4.8% at 384^3, a wash at 256^3
-    # (surface-band geometry leaves its 48-row y-slabs ineligible), and
-    # self-disabled below nz = 3*128 (RESULTS.md round-5).
-    pallas_band_strip: int = 128
     # Advection scheme for the simulation driver (models/simulate):
     # "semi_lagrangian" is the reference-flavored backtrace (trilinear
-    # map_coordinates) -- 8 arbitrary-index gathers per field, which run
-    # on the TPU's SCALAR core: measured ~2 s/frame at 128^3, ~40x the
-    # projection solve.  "upwind" is the TPU-native stencil scheme (same
-    # formal order, pure VPU shift/select arithmetic) with
-    # `advect_substeps` sub-Euler steps keeping CFL <= 1 per substep.
+    # map_coordinates, 8 arbitrary-index gathers per field).  "upwind" is
+    # a stencil scheme (same formal order, shift/select arithmetic, no
+    # gathers) with `advect_substeps` sub-Euler steps keeping CFL <= 1 per
+    # substep.
     advection: str = "semi_lagrangian"
     advect_substeps: int = 4
     # Record the relative residual of EVERY CG iteration into
@@ -206,11 +134,10 @@ class SolverConfig:
 
     def __post_init__(self):
         # Every string-mode knob is compared with `==`/`!=` at use sites;
-        # validating here turns a typo ("per_level", "palas") into an
+        # validating here turns a typo ("per_level", "mmm") into an
         # immediate error instead of a silently-selected default path.
         allowed = {
-            "kernel_mode": ("auto", "jnp", "pallas"),
-            "transfer_mode": ("auto", "mm", "slice"),
+            "transfer_mode": ("slice", "mm"),
             "setup_fusion": ("auto", "fused", "per-level"),
             "interior_smoother": (None, "chebyshev"),
             "advection": ("semi_lagrangian", "upwind"),
@@ -221,39 +148,6 @@ class SolverConfig:
                 raise ValueError(
                     f"config.{name}={value!r}; expected one of {values}"
                 )
-
-    # Measured bracket for the fused setup program's HBM workspace on one
-    # 16 GB v5e: OK at a 95.4M-cell window (384^3 scene), RESOURCE_EXHAUSTED
-    # at 125.8M (448^3).  "auto" switches to per-level at the top of the
-    # measured-safe side of the bracket, so it never picks fused in the
-    # unverified 95.4M..125.8M region.
-    SETUP_FUSION_AUTO_CELLS = 96_000_000
-
-    def setup_fusion_resolved(self, expanded_shape, n_devices: int = 1) -> str:
-        """The concrete setup granularity for a window of `expanded_shape`.
-
-        Resolution is per entry point, from the shape that entry point
-        actually builds: free_surface.build_setup passes the expanded
-        window it computed, while mgpcg.build_problem / mg.device_hierarchy
-        pass the fine-label grid they were handed (which on those entry
-        points IS the already-expanded domain, per their contracts).  Each
-        build path is internally consistent; entry points only diverge if
-        callers hand them differently-shaped domains.
-
-        With `n_devices` (sharded setup over a mesh) the workspace
-        threshold scales: the fused program's live range splits across the
-        mesh, so per-DEVICE cells are what the measured HBM bracket
-        constrains.
-        """
-        if self.setup_fusion != "auto":
-            return self.setup_fusion
-        cells = 1
-        for s in expanded_shape:
-            cells *= int(s)
-        per_device = cells // max(1, n_devices)
-        return (
-            "per-level" if per_device > self.SETUP_FUSION_AUTO_CELLS else "fused"
-        )
 
     @property
     def mg_dtype_resolved(self):

@@ -7,8 +7,8 @@ solid sphere with cut-cell weights via computeSDFWeightsFace, domain-edge
 faces zeroed).
 
 Every generator takes an `xp` array module (numpy by default, jax.numpy for
-device-resident generation: at 256^3+ the scene build must run on the TPU
-because build hosts may have a single slow CPU core).
+device-resident generation: at 256^3+ the scene build runs on the device
+rather than in host numpy).
 
 Conventions:
   * liquid SDF `phi`: cell-centered, <= 0 inside the liquid;

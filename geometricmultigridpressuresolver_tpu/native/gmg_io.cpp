@@ -3,7 +3,7 @@
 // The reference's grid substrate (Houdini UT_VoxelArray, 16^3 tiles with
 // constant-tile compression -- SURVEY.md section 2.1) owns field I/O
 // through Houdini's .sim/.hip formats.  This standalone C++ library plays
-// that role for the TPU framework: cell/face fields stream to disk in a
+// that role for this framework: cell/face fields stream to disk in a
 // tiled format where constant tiles (far-field SDF regions, exterior
 // padding, zero velocity) collapse to a single value.  Python binds via
 // ctypes (geometricmultigridpressuresolver_tpu/io.py) -- no pybind11

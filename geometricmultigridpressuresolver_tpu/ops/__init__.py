@@ -2,5 +2,5 @@
 
 Host-side (numpy) domain construction lives in `domain`; device-side (JAX)
 stencils, transfer operators, and grid BLAS live in `stencil`, `transfer`,
-and `blas`.  Pallas TPU kernels for the hot stencils live in `pallas`.
+and `blas`.
 """

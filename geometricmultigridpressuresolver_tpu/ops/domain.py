@@ -5,9 +5,9 @@ coarsening, boundary relabeling, boundary-band construction, and per-level
 stencil-coefficient precomputation.  The reference does all of this with
 tile-parallel C++ loops over Houdini voxel arrays; here the same label
 semantics are expressed as *functional* array ops that run identically on
-host numpy (tests, oracles) or on the TPU under `jit` (production setup --
-build hosts may have a single slow CPU core while the grids are 512^3, so
-the setup pipeline itself must be device-resident).
+host numpy (tests, oracles) or on the device under `jit` (production setup
+-- the grids may be 512^3, so the setup pipeline itself is
+device-resident).
 
 Reference equivalents:
   * expand_domain        -> buildExpandedCellLabels
@@ -155,7 +155,6 @@ def compact_expansion_params(
     non_ext_proj: Sequence[np.ndarray],
     non_ext_count: int | None = None,
     coarse_dof_target: int = 3000,
-    align_lanes: bool = True,
 ) -> tuple[int, int, tuple[tuple[int, int], ...], tuple[int, int, int]]:
     """Compact-domain geometry from per-axis occupancy projections.
 
@@ -198,50 +197,10 @@ def compact_expansion_params(
                 break
 
     padding = 2 ** (mg_levels - 1)
-    expanded = [
+    expanded = tuple(
         ((e + 2 * padding + padding - 1) // padding) * padding for e in extents
-    ]
-    if align_lanes:
-        expanded = list(align_tile_extents(expanded, padding))
-    return mg_levels, padding, tuple(bbox), tuple(expanded)
-
-
-def align_tile_extents(expanded, padding: int):
-    """Round window extents up for the fused TPU kernels' tiling.
-
-    * Last (lane) axis: multiple of 128 when the extent is >= 96.  Mosaic
-      DMA slices must be 128-aligned along lanes (the fused kernels stream
-      full-z slabs), and fp32 arrays are physically (8, 128)-tiled in HBM
-      anyway -- the tail tile is allocated either way.  Below 96 the
-      logical growth (up to 4/3x cells, all streamed since slabs span full
-      z) outweighs the kernel win and the jnp path serves.
-    Dims 0/1 deliberately stay MINIMAL: measured at 256^3, inflating them
-    to unlock larger slab tiles (halo amplification 2.67 -> 2.0) costs
-    more in the non-skipped full-window passes (outer-CG elementwise
-    updates, reductions, transfers) than the fused kernels win back --
-    every extra cell is streamed by those passes even though the
-    occupancy-compacted kernels skip it.
-
-    Idempotent; preserves the multiple-of-`padding` invariant the
-    coarsening needs because the adjustments are multiples of 128 and
-    `padding` (a power of two, 2**(mg_levels-1)) divides 128.  That
-    divisibility is ASSERTED: with padding > 128 (min extent >= 1024
-    uncapped, or coarse_dof_target pushed very low) the 128-rounding would
-    silently break the invariant and the hierarchy would cap early at an
-    odd extent instead.
-    """
-    if 128 % padding:
-        # ValueError (not assert): the guard must survive python -O --
-        # without it the 128-rounding silently breaks the
-        # multiple-of-padding invariant and the hierarchy caps early.
-        raise ValueError(
-            f"lane alignment requires padding ({padding}) to divide 128; "
-            "cap mg levels (config.max_mg_levels) or raise coarse_dof_target"
-        )
-    out = list(expanded)
-    if out[2] >= 96:
-        out[2] = ((out[2] + 127) // 128) * 128
-    return tuple(out)
+    )
+    return mg_levels, padding, tuple(bbox), expanded
 
 
 def expand_face_weights(
@@ -281,35 +240,13 @@ def set_boundary_labels(labels, face_weights: Sequence | None):
     return xp.where((labels == INT) & touches, BND, labels).astype(LABEL_DTYPE)
 
 
-def coarse_lane_pad(fine_nz: int) -> int:
-    """Extra EXTERIOR z-cells appended to a coarse level so its lane dim
-    stays a multiple of 128 (TPU fp32 tile width).
-
-    Padding with exterior cells leaves the linear system untouched (no DOFs,
-    zero fields) but keeps coarse levels eligible for the fused Pallas
-    smoother, whose HBM DMA requires 128-aligned lane slices.  Applied only
-    when the fine level is already lane-aligned and the half is large
-    enough that the pad is small relative to the level.
-
-    The padded extent is a multiple of 128, so it stays coarsenable for up
-    to 7 further levels (2**7 = 128) -- deeper-than-8 hierarchies are
-    excluded by the align_tile_extents assertion (padding must divide 128).
-    """
-    cz = fine_nz // 2
-    if fine_nz % 128 == 0 and cz >= 128 and cz % 128:
-        return ((cz + 127) // 128) * 128 - cz
-    return 0
-
-
-def coarsen_labels(fine_labels, lane_align: bool = False):
+def coarsen_labels(fine_labels):
     """One level of label coarsening (8-children vote + boundary pass).
 
     Any DIRICHLET child -> DIRICHLET; else any solvable child -> INTERIOR;
     else EXTERIOR.  Then INTERIOR cells face-adjacent to DIRICHLET/EXTERIOR
     become BOUNDARY.  Coarse levels carry no fractional weights.
     Reference: Source/HDK_GeometricMultigridOperators.cpp:23-163.
-    With `lane_align`, the coarse grid gains `coarse_lane_pad` trailing
-    EXTERIOR cells along z (see above; transfers pad/slice to match).
     """
     xp = _xp(fine_labels)
     assert all(s % 2 == 0 for s in fine_labels.shape), fine_labels.shape
@@ -320,10 +257,6 @@ def coarsen_labels(fine_labels, lane_align: bool = False):
     coarse = xp.where(has_dirichlet, DIR, xp.where(has_interior, INT, EXT)).astype(
         LABEL_DTYPE
     )
-    if lane_align:
-        pad = coarse_lane_pad(fine_labels.shape[2])
-        if pad:
-            coarse = xp.pad(coarse, [(0, 0), (0, 0), (0, pad)], constant_values=EXT)
     return set_boundary_labels(coarse, None)
 
 
@@ -471,13 +404,6 @@ def check_coarsening(fine, coarse) -> bool:
     """
     fine = np.asarray(fine)
     coarse = np.asarray(coarse)
-    # Trailing lane padding (coarse_lane_pad) must be pure EXTERIOR; the
-    # semantic checks run on the natural half-resolution region.
-    natural_z = fine.shape[2] // 2
-    if coarse.shape[2] > natural_z:
-        if (coarse[:, :, natural_z:] != EXT).any():
-            return False
-        coarse = coarse[:, :, :natural_z]
     if tuple(2 * np.asarray(coarse.shape)) != fine.shape:
         return False
     if not np.array_equal(coarse, np.asarray(coarsen_labels(fine))):

@@ -21,7 +21,7 @@ loops (Source/HDK_GeometricMultigridOperators.h:177-732):
 
 All stencil coefficients are precomputed per level (see
 `ops.domain.build_level_coefficients`), so every operator is a pure 7-point
-stencil with static coefficient grids: HBM-bandwidth-bound on TPU, fully
+stencil with static coefficient grids: memory-bandwidth-bound, fully
 fusible by XLA.
 
 The operator is the dimensionless Poisson matrix (dx factored out, interior
@@ -49,11 +49,8 @@ class LevelCoeffs(NamedTuple):
     """
 
     solvable: jax.Array  # bool  (nx, ny, nz)
-    band: jax.Array      # int8 (0/1) or bool (nx, ny, nz) -- int8 on the
-    #                      device path so the fused kernels stream it
-    #                      without a per-solve astype copy (TPU has no
-    #                      int8 vector compare; the kernels blend on it
-    #                      arithmetically either way)
+    band: jax.Array      # int8 (0/1) or bool (nx, ny, nz); int8 on the
+    #                      device path (one byte per cell)
     diag: jax.Array      # float (nx, ny, nz)
     inv_diag: jax.Array  # float (nx, ny, nz)
     ew0: jax.Array       # float (nx, ny, nz)

@@ -30,10 +30,9 @@ _R_WEIGHTS = (1.0 / 8.0, 3.0 / 8.0, 3.0 / 8.0, 1.0 / 8.0)
 def _restrict_matrix_np(n_fine: int, n_coarse: int) -> np.ndarray:
     """(n_fine, n_coarse) separable restriction matrix R.
 
-    R[2c-1+k, c] = _R_WEIGHTS[k]; columns past the natural half (the coarse
-    lane padding, ops.domain.coarse_lane_pad) stay zero.  Prolongation along
-    the axis is 2 * R^T (the pair P = 4 * R^T over three axes), so using the
-    same matrix transposed keeps the pair adjoint EXACTLY by construction.
+    R[2c-1+k, c] = _R_WEIGHTS[k].  Prolongation along the axis is 2 * R^T
+    (the pair P = 4 * R^T over three axes), so using the same matrix
+    transposed keeps the pair adjoint EXACTLY by construction.
     """
     m = np.zeros((n_fine, n_coarse), dtype=np.float64)
     for c in range(n_fine // 2):
@@ -45,7 +44,11 @@ def _restrict_matrix_np(n_fine: int, n_coarse: int) -> np.ndarray:
 
 
 def _axis_matmul(x: jax.Array, m: jax.Array, axis: int) -> jax.Array:
-    """Contract `axis` of x with the first dim of m (MXU path)."""
+    """Contract `axis` of x with the first dim of m.
+
+    HIGHEST precision: a float32 contraction may otherwise run in TF32,
+    which keeps about three decimal digits.
+    """
     out = jnp.tensordot(
         x, m, axes=([axis], [0]), precision=jax.lax.Precision.HIGHEST
     )
@@ -56,9 +59,8 @@ def _axis_matmul(x: jax.Array, m: jax.Array, axis: int) -> jax.Array:
 def restrict_mm(fine: jax.Array, coarse_solvable: jax.Array) -> jax.Array:
     """Full-weighting restriction as three per-axis matmuls.
 
-    Numerically the same operator as `restrict` (different rounding), but
-    the contraction runs on the MXU: ~5x faster than the slice-based path
-    on TPU.  Masked to the coarse solvable set.
+    Numerically the same operator as `restrict` (different rounding), with
+    the contractions as matrix products.  Masked to the coarse solvable set.
     """
     out = fine
     for axis in range(3):
@@ -110,22 +112,10 @@ def _restrict_axis(x: jax.Array, axis: int) -> jax.Array:
 
 
 def restrict(fine: jax.Array, coarse_solvable: jax.Array) -> jax.Array:
-    """Full-weighting restriction, masked to the coarse solvable set.
-
-    The coarse grid may carry trailing EXTERIOR lane padding
-    (ops.domain.coarse_lane_pad); the natural half-resolution result is
-    zero-padded to the coarse shape.  Padding with zeros is the exact
-    transpose of the slice `prolong_add` applies, so the pair stays adjoint.
-    """
+    """Full-weighting restriction, masked to the coarse solvable set."""
     out = fine
     for axis in range(3):
         out = _restrict_axis(out, axis)
-    if out.shape != coarse_solvable.shape:
-        pad = [
-            (0, cs - os)
-            for os, cs in zip(out.shape, coarse_solvable.shape)
-        ]
-        out = jnp.pad(out, pad)
     return jnp.where(coarse_solvable, out, jnp.zeros_like(out))
 
 
@@ -166,13 +156,6 @@ def prolong(coarse: jax.Array) -> jax.Array:
 def prolong_add(
     fine_x: jax.Array, coarse_x: jax.Array, fine_solvable: jax.Array
 ) -> jax.Array:
-    """fine_x += 4 * trilerp(coarse_x), masked to the fine solvable set.
-
-    If the coarse grid carries trailing lane padding, only its natural
-    (fine/2) region is interpolated (the transpose of `restrict`'s pad).
-    """
-    natural = tuple(s // 2 for s in fine_x.shape)
-    if coarse_x.shape != natural:
-        coarse_x = coarse_x[tuple(slice(0, s) for s in natural)]
+    """fine_x += 4 * trilerp(coarse_x), masked to the fine solvable set."""
     up = prolong(coarse_x)
     return jnp.where(fine_solvable, fine_x + up, fine_x)

@@ -1,11 +1,11 @@
 """Multi-chip distribution (new relative to the reference).
 
 The reference is shared-memory only (SURVEY.md sections 2.10-2.11): its one
-parallelism strategy is tile-parallel threading.  The TPU framework adds
+parallelism strategy is tile-parallel threading.  This framework adds
 spatial domain decomposition: voxel grids are block-partitioned over a 3-D
 `jax.sharding.Mesh`, stencil halo exchanges and CG reductions become XLA
 collectives inserted by the SPMD partitioner, and coarse levels below a
-size threshold are replicated per chip (communication-avoiding coarse
+size threshold are replicated per device (communication-avoiding coarse
 strategy).
 """
 

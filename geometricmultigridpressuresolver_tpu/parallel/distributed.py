@@ -2,17 +2,14 @@
 
 The reference is a single-workstation Houdini plugin with no distributed
 path at all; SURVEY.md section 2.11 and BASELINE.md row 5 make multi-host
-the new axis of the TPU rebuild: ICI-connected chips inside a host slice
-communicate through the `jax.sharding` collectives the solver already
-emits (ppermute halos, psum dots -- parallel/halo.py, pallas_sharded.py),
-and THIS module adds the host (DCN) dimension:
+a new axis of this build: devices inside one host communicate through the
+collectives XLA inserts for the block-partitioned solve (collective-permute
+halos, all-reduce dots), and THIS module adds the process dimension:
 
   * `initialize()` wraps `jax.distributed.initialize` -- after it returns,
     `jax.devices()` spans every process and `make_mesh()` builds a global
-    mesh whose collectives ride ICI within a host and DCN across hosts
-    (XLA picks the transport per mesh edge; keeping the fastest-varying
-    mesh axes intra-host is the usual layout, and `make_mesh` preserves
-    device order, which enumerates local devices contiguously).
+    mesh (XLA picks the transport per mesh edge; `make_mesh` preserves
+    device order, which enumerates each process's devices contiguously).
   * `process_local_slices()` / `make_global_grid()` build the global
     sharded arrays from HOST-LOCAL data: each process materializes only
     its own blocks (a 1024^3 fp32 grid is 4 GiB -- no host should hold
@@ -49,18 +46,17 @@ def initialize(
     """Join (or start) the multi-process JAX runtime.
 
     Thin wrapper over `jax.distributed.initialize` with the same argument
-    semantics (None values auto-detect under supported cluster
-    environments: TPU pods, SLURM, Open MPI).  Must be called before any
-    other JAX API touches the backend.  After it returns:
+    semantics (None values auto-detect only under supported cluster
+    environments such as SLURM or Open MPI; elsewhere pass all three).
+    Must be called before any other JAX API touches the backend.  After it returns:
 
       * `jax.devices()` lists the GLOBAL device set (all processes);
       * `jax.local_devices()` lists this process's chips;
       * `global_mesh()` builds the solver mesh over the global set.
 
-    On a TPU pod slice, run one process per host with the SAME
-    coordinator address (host 0's `ip:port`), `num_processes` = host
-    count, and `process_id` = this host's index; under TPU metadata
-    auto-detection all four arguments can stay None.
+    Run one process per host with the SAME coordinator address (host 0's
+    `ip:port`), `num_processes` = host count, and `process_id` = this
+    host's index.
     """
     kwargs = {}
     if coordinator_address is not None:
@@ -79,8 +75,8 @@ def global_mesh(n_devices: int | None = None) -> Mesh:
 
     `jax.devices()` enumerates each process's devices contiguously, and
     `make_mesh` reshapes in order, so the mesh's trailing (fastest-varying)
-    axes stay intra-host where possible -- halo ppermutes then ride ICI and
-    only the leading-axis edges cross DCN.
+    axes stay intra-host where possible -- only the leading-axis halo
+    exchanges then cross hosts.
     """
     return make_mesh(n_devices, devices=jax.devices())
 

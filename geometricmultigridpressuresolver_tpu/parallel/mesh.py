@@ -51,10 +51,9 @@ def constrain_grid(arr, mesh: Mesh | None, min_per_device: int = 8):
     Used inside the jitted SETUP programs (hierarchy build, window
     expansion) when they run on a mesh: GSPMD generally propagates the
     input shardings through the elementwise/shift ops, but the constraint
-    makes the memory behavior deterministic -- no intermediate of the 512^3
-    build may ever materialize replicated, or the build OOMs exactly the
-    way the single-device one does (benchmarks/RESULTS.md round-4: the
-    512^3 fine-level coefficient build alone exhausts one chip).
+    makes the memory behavior deterministic -- no intermediate of a large
+    build may ever materialize replicated, or the build needs as much
+    memory per device as the single-device one does.
     """
     if mesh is None:
         return arr

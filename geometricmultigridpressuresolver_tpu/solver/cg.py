@@ -45,7 +45,7 @@ def _interrupt_flag(interrupt_check, iteration):
     granularity is once per CG iteration: an ordered host callback sets a
     flag in the loop state, and the while-loop condition consumes it (side
     effects are not allowed in `cond`, so the check lives in the body).
-    Opt-in -- the host round trip costs real latency on remote devices.
+    Opt-in -- the host round trip stalls the device once per iteration.
     """
     from jax.experimental import io_callback
 
@@ -159,122 +159,6 @@ def solve_pcg(
     # Zero-RHS early-out (reference HDK_GeometricCGPoissonSolver.h:36-40):
     # with ||b|| = 0 the threshold is 0 and the loop never converges by the
     # residual test alone, so select the trivial solution explicitly.
-    zero_rhs = b_norm2 == 0
-    x_out = jnp.where(zero_rhs, jnp.zeros_like(final.x), final.x)
-    safe_bnorm = jnp.where(zero_rhs, jnp.ones_like(b_norm2), b_norm2)
-    rel = jnp.sqrt(final.rr / safe_bnorm)
-    rel = jnp.where(zero_rhs, jnp.zeros_like(rel), rel)
-    converged = zero_rhs | (final.rr <= threshold)
-    iterations = jnp.where(zero_rhs, jnp.int32(0), final.iteration)
-    return CGResult(
-        x_out, iterations, rel, converged,
-        _history_finish(final.history, b_norm2, record_residuals),
-    )
-
-
-def solve_pcg_fused(
-    step_p: Callable[[jax.Array, jax.Array, jax.Array], tuple],
-    apply_a: Callable[[jax.Array], jax.Array],
-    apply_preconditioner: Callable[[jax.Array], jax.Array],
-    b: jax.Array,
-    solvable: jax.Array,
-    x0: jax.Array | None = None,
-    tolerance: float = 1e-5,
-    max_iterations: int = 2500,
-    project_null_space: bool = False,
-    preconditioner_dot: Callable[[jax.Array], tuple] | None = None,
-    interrupt_check: Callable[[int], bool] | None = None,
-    record_residuals: bool = False,
-) -> CGResult:
-    """PCG with a fused search-direction/mat-vec/dot step.
-
-    `step_p(z, p, beta) -> (p_new, A p_new, <p_new, A p_new>)` replaces the
-    three separate passes of the textbook body (see ops.pallas_cg).  The
-    iteration sequence is algebraically identical to `solve_pcg`: the same
-    updates run in the same order, only the carry is rotated so the
-    search-direction update opens the body instead of closing it.
-    `preconditioner_dot(r) -> (z, <r, z>)` optionally fuses the rho
-    reduction into the preconditioner (ignored under null-space projection,
-    which must project z before the dot).  The solution/residual tail
-    (x += alpha p, r -= alpha Ap, ||r'||^2) deliberately stays on XLA's
-    own fusion: a hand-written tail kernel measured SLOWER at 256^3
-    (round 3) and 448^3 (round 5) and was removed -- see
-    benchmarks/RESULTS.md.
-    """
-    if project_null_space:
-        preconditioner_dot = None
-    if preconditioner_dot is None:
-        def preconditioner_dot(r):
-            z = apply_preconditioner(r)
-            return z, blas.dot(r, z, solvable)
-    dtype = b.dtype
-    x = jnp.zeros_like(b) if x0 is None else x0.astype(dtype)
-
-    def project(v):
-        return blas.project_null_space(v, solvable) if project_null_space else v
-
-    b = project(b)
-    b_norm2 = blas.squared_l2_norm(b, solvable)
-    threshold = dtype.type(tolerance) ** 2 * b_norm2
-
-    r = project(jnp.where(solvable, b - apply_a(x), jnp.zeros_like(b)))
-    z, rho0 = preconditioner_dot(r)
-    z = project(z)
-    rho0 = rho0.reshape(()).astype(dtype)
-    rr0 = blas.squared_l2_norm(r, solvable)
-
-    class _FState(NamedTuple):
-        x: jax.Array
-        r: jax.Array
-        z: jax.Array
-        p: jax.Array
-        rho: jax.Array
-        beta: jax.Array
-        rr: jax.Array
-        iteration: jax.Array
-        interrupted: jax.Array
-        history: jax.Array
-
-    def cond(s):
-        return (
-            (s.rr > threshold)
-            & (s.iteration < max_iterations)
-            & jnp.logical_not(s.interrupted)
-        )
-
-    def body(s):
-        p, ap, pap = step_p(s.z, s.p, s.beta)
-        pap = pap.reshape(()).astype(dtype)
-        alpha = s.rho / jnp.where(pap == 0, jnp.ones_like(pap), pap)
-        x = s.x + alpha * p
-        r = project(jnp.where(solvable, s.r - alpha * ap, s.r))
-        rr = blas.squared_l2_norm(r, solvable)
-        z, rho_new = preconditioner_dot(r)
-        z = project(z)
-        rho_new = rho_new.reshape(()).astype(dtype)
-        beta = rho_new / jnp.where(s.rho == 0, jnp.ones_like(s.rho), s.rho)
-        interrupted = (
-            _interrupt_flag(interrupt_check, s.iteration + 1)
-            if interrupt_check is not None
-            else s.interrupted
-        )
-        history = (
-            s.history.at[s.iteration + 1].set(rr)
-            if record_residuals
-            else s.history
-        )
-        return _FState(
-            x, r, z, p, rho_new, beta, rr, s.iteration + 1, interrupted,
-            history,
-        )
-
-    init = _FState(
-        x, r, z, z, rho0, jnp.zeros_like(rho0), rr0, jnp.int32(0),
-        jnp.bool_(False),
-        _history_init(rr0, max_iterations, record_residuals, dtype),
-    )
-    final = jax.lax.while_loop(cond, body, init)
-
     zero_rhs = b_norm2 == 0
     x_out = jnp.where(zero_rhs, jnp.zeros_like(final.x), final.x)
     safe_bnorm = jnp.where(zero_rhs, jnp.ones_like(b_norm2), b_norm2)

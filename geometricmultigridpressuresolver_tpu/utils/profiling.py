@@ -8,7 +8,7 @@ Source/HDK_GeometricCGPoissonSolver.h:46-195), and Houdini performance
 monitor events naming each pipeline phase
 (Source/HDK_GeometricFreeSurfacePressureSolver.cpp:264-668).
 
-TPU equivalents here, keeping the same stage taxonomy:
+Equivalents here, keeping the same stage taxonomy:
 
   * `StageTimer`    -- named wall-clock stages with device synchronization
                        (the UT_StopWatch / UT_PerfMonAutoSolveEvent analogue);
@@ -30,6 +30,7 @@ overhead, reported separately via the `overhead` field).
 from __future__ import annotations
 
 import contextlib
+import functools
 import time
 from dataclasses import dataclass, field
 from typing import Callable
@@ -108,49 +109,53 @@ def trace(log_dir: str):
         jax.profiler.stop_trace()
 
 
+@jax.jit
+def _matvec(fine, p):
+    return stencil.apply_poisson(p, fine)
+
+
+@functools.partial(jax.jit, static_argnames=("config",))
+def _precondition(prob, r, config):
+    if config.use_mg_preconditioner:
+        z = mg_mod.v_cycle(
+            prob.hier,
+            jnp.zeros_like(r, dtype=config.mg_dtype_resolved),
+            r,
+            config,
+            use_initial_guess=False,
+        )
+        return z.astype(r.dtype)
+    return prob.fine.inv_diag * r
+
+
+@jax.jit
+def _dot(solvable, x, y):
+    return blas.dot(x, y, solvable)
+
+
+@jax.jit
+def _norm2(solvable, x):
+    return blas.squared_l2_norm(x, solvable)
+
+
+@jax.jit
+def _update_x_r(solvable, x, r, p, ap, alpha):
+    return x + alpha * p, jnp.where(solvable, r - alpha * ap, r)
+
+
+@jax.jit
+def _update_p(z, p, beta):
+    return z + beta * p
+
+
 def _jit_stages(problem: mgpcg.PoissonProblem, config: SolverConfig):
     """Separately jitted CG sub-steps (the reference's timed functor pack).
 
-    The problem pytree is passed as a jit ARGUMENT (bound via
-    functools.partial-style closures would embed the coefficient grids as
-    HLO constants, which bloats the program 100x and breaks remote-compile
-    size limits).
+    The stage programs live at module level, so a second instrumented
+    solve of the same shapes reuses their executables.  The problem pytree
+    is passed as a jit ARGUMENT (closing over it would embed the
+    coefficient grids in the program as constants).
     """
-    import functools
-
-    @jax.jit
-    def _matvec(fine, p):
-        return stencil.apply_poisson(p, fine)
-
-    @functools.partial(jax.jit, static_argnames=("config",))
-    def _precondition(prob, r, config):
-        if config.use_mg_preconditioner:
-            z = mg_mod.v_cycle(
-                prob.hier,
-                jnp.zeros_like(r, dtype=config.mg_dtype_resolved),
-                r,
-                config,
-                use_initial_guess=False,
-            )
-            return z.astype(r.dtype)
-        return prob.fine.inv_diag * r
-
-    @jax.jit
-    def _dot(solvable, x, y):
-        return blas.dot(x, y, solvable)
-
-    @jax.jit
-    def _norm2(solvable, x):
-        return blas.squared_l2_norm(x, solvable)
-
-    @jax.jit
-    def _update_x_r(solvable, x, r, p, ap, alpha):
-        return x + alpha * p, jnp.where(solvable, r - alpha * ap, r)
-
-    @jax.jit
-    def _update_p(z, p, beta):
-        return z + beta * p
-
     solvable = problem.fine.solvable
     return (
         lambda p: _matvec(problem.fine, p),
@@ -268,23 +273,22 @@ def vcycle_stage_times(
         config = SolverConfig()
     nlev = hier.num_levels
     dtype = hier.levels[0].diag.dtype
-    pallas_ok = mg_mod._pallas_level_flags(hier, config)
-    # Padded kernel levels need their (spec, padded coeffs, slab list)
-    # aux entry; True levels rebuild their slab list inside the jit.
-    block_lists = mg_mod.hierarchy_block_lists(hier, config)
+    if config.transfer_mode == "mm":
+        restrict, prolong_add = transfer.restrict_mm, transfer.prolong_add_mm
+    else:
+        restrict, prolong_add = transfer.restrict, transfer.prolong_add
 
     smooth = jax.jit(
-        mg_mod._smooth_level,
-        static_argnames=("config", "forward", "use_pallas"),
+        mg_mod._smooth_level, static_argnames=("config", "forward")
     )
 
     @jax.jit
     def res_restrict(x, rhs, level_coeffs, coarse_solvable):
         r = stencil.residual(x, rhs, level_coeffs)
-        return transfer.restrict(r, coarse_solvable)
+        return restrict(r, coarse_solvable)
 
     coarse = jax.jit(mg_mod.coarse_solve)
-    prolong = jax.jit(transfer.prolong_add)
+    prolong = jax.jit(prolong_add)
 
     times = StageTimes()
     for rep in range(warmup + reps):
@@ -296,9 +300,7 @@ def vcycle_stage_times(
             xl = jnp.zeros(c.shape, dtype=dtype)
             with timer.stage(f"L{level} smooth (down)"):
                 xl = timer.sync(
-                    smooth(xl, rhs[level], c, config=config, forward=True,
-                           use_pallas=pallas_ok[level],
-                           blocks=block_lists[level])
+                    smooth(xl, rhs[level], c, config=config, forward=True)
                 )
             sols[level] = xl
             with timer.stage(f"L{level} residual+restrict"):
@@ -315,9 +317,7 @@ def vcycle_stage_times(
                 )
             with timer.stage(f"L{level} smooth (up)"):
                 sols[level] = timer.sync(
-                    smooth(xl, rhs[level], c, config=config, forward=False,
-                           use_pallas=pallas_ok[level],
-                           blocks=block_lists[level])
+                    smooth(xl, rhs[level], c, config=config, forward=False)
                 )
         if rep >= warmup:
             for name, s in timer.times.seconds.items():

@@ -1,10 +1,9 @@
 """Every public entry point must work with every optional argument
 defaulted (config=None etc.).
 
-Round-2 regression: `v_cycle(hier, x, b)` crashed because
-`_pallas_level_flags` read `config.kernel_mode` before its None guard
-(VERDICT r2, weak #2).  No test called a public API with a defaulted
-config, so the bug survived a cleanup pass.  This module is that test.
+Regression guard: `v_cycle(hier, x, b)` once crashed because a helper
+read a config field before its None guard, and no test called a public
+API with a defaulted config.  This module is that test.
 """
 
 import jax.numpy as jnp
@@ -75,7 +74,7 @@ def test_config_matrix_smoke():
         dict(use_mg_preconditioner=False, record_residuals=True),
         dict(use_gauss_seidel=False, record_residuals=True),
         dict(interior_smoother="chebyshev", setup_fusion="per-level"),
-        dict(transfer_mode="slice", mg_dtype=jnp.float32),
+        dict(transfer_mode="mm", mg_dtype=jnp.float32),
         dict(project_null_space=False, max_mg_levels=2,
              setup_fusion="per-level"),
     ]

@@ -140,51 +140,24 @@ def test_level_capping():
         assert (lv >= INT).any()
 
 
-def test_align_tile_extents_rules():
-    """Window alignment for the fused kernels: lane axis rounds to 128
-    multiples from extent 96 up; dims 0/1 stay minimal (measured: inflating
-    them costs more in non-kernel passes than larger tiles win back)."""
-    from geometricmultigridpressuresolver_tpu.ops.domain import align_tile_extents
+@pytest.mark.parametrize("n", [16, 48, 100, 130])
+def test_compact_window_extents_are_minimal(n):
+    """Every window extent is the smallest multiple of the exterior padding
+    that holds the active box plus one padding on each side -- on the last
+    axis too, at every size."""
+    from geometricmultigridpressuresolver_tpu.models import free_surface, sdf
 
-    # Below the gate: untouched.
-    assert align_tile_extents((72, 68, 72), 8) == (72, 68, 72)
-    # 128^3-class window: lane axis 144 -> 256; dims 0/1 unchanged.
-    assert align_tile_extents((144, 136, 144), 8) == (144, 136, 256)
-    # Already aligned: idempotent.
-    assert align_tile_extents((288, 256, 384), 16) == (288, 256, 384)
-    assert align_tile_extents(
-        align_tile_extents((144, 136, 150), 8), 8
-    ) == align_tile_extents((144, 136, 150), 8)
-
-
-def test_plan_tiles_and_block_list_geometry():
-    """plan_tiles divides interior extents; solvable_block_list covers all
-    solvable cells with active blocks and nothing is listed twice."""
-    import jax.numpy as jnp
-
-    from geometricmultigridpressuresolver_tpu.ops import pallas_smoother as ps
-
-    shape = (80, 64, 128)
-    tb, yb = ps.plan_tiles(shape, 4, 32, 48)
-    rx, ry = shape[0] - 2 * ps.H, shape[1] - 2 * ps.H
-    assert rx % tb == 0 and ry % yb == 0
-    assert tb % 8 == 0 and yb % 8 == 0
-
-    solvable = np.zeros(shape, dtype=bool)
-    solvable[ps.H + 4 : ps.H + 20, ps.H + 2 : ps.H + 10, 30:90] = True
-    bx, by, na = ps.solvable_block_list(jnp.asarray(solvable), tb, yb)
-    na = int(na)
-    assert 0 < na <= bx.shape[0]
-    seen = set()
-    covered = np.zeros(shape, dtype=bool)
-    for k in range(na):
-        key = (int(bx[k]), int(by[k]))
-        assert key not in seen, "duplicate block in compacted list"
-        seen.add(key)
-        ox, oy = key[0] * tb, key[1] * yb
-        covered[ps.H + ox : ps.H + ox + tb, ps.H + oy : ps.H + oy + yb, :] = True
-    assert (covered | ~solvable).all(), "solvable cell not covered"
-
-    # Dense fallback covers everything.
-    dbx, dby, dna = ps._dense_block_list(rx, ry, tb, yb)
-    assert int(dna) == dbx.shape[0] == (rx // tb) * (ry // yb)
+    phi, _ = sdf.splash_scene((n, n, n))
+    weights = sdf.open_box_weights((n, n, n))
+    *_, projections = free_surface._setup_base_fields(
+        phi, weights, None, 0.01, np.float64, dirichlet_band=4,
+        want_derived=False,
+    )
+    mg_levels, padding, bbox, expanded = domain.compact_expansion_params(
+        projections[:3], non_ext_count=int(projections[3])
+    )
+    assert padding == 2 ** (mg_levels - 1)
+    for (lo, hi), e in zip(bbox, expanded):
+        need = hi - lo + 2 * padding
+        assert e % padding == 0
+        assert need <= e < need + padding

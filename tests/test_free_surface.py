@@ -267,6 +267,27 @@ def test_sticky_window_reuse():
     assert all(a <= b for a, b in zip(s2.expanded_shape, s0.expanded_shape))
 
 
+def test_sticky_window_regrowth_adds_slack_on_every_axis():
+    """When the previous window no longer fits, the regrown window is the
+    minimal one plus `window_slack` paddings on all three axes."""
+    n = 24
+    config = SolverConfig(tolerance=1e-6, max_iterations=200)
+    phi, velocity = sdf.splash_scene((n, n, n))
+    weights = sdf.open_box_weights((n, n, n))
+    phi_small = np.asarray(phi).copy()
+    phi_small[:, 2 * n // 3 :, :] = 1.0  # drop removed: a shorter window
+    small = free_surface.build_setup(phi_small, weights, config=config)
+    minimal = free_surface.build_setup(phi, weights, config=config)
+    assert any(s < m for s, m in zip(small.expanded_shape, minimal.expanded_shape))
+
+    grown = free_surface.build_setup(phi, weights, config=config, reuse_from=small)
+    slack = config.window_slack * minimal.padding
+    assert grown.expanded_shape == tuple(e + slack for e in minimal.expanded_shape)
+    res = free_surface.project(grown, velocity, config=config)
+    assert bool(res.cg.converged)
+    assert float(res.max_divergence) < 1e-4
+
+
 def test_empty_liquid_degrades_gracefully():
     """A frame with no liquid anywhere must produce a trivial projection
     (zero pressure, velocity unchanged) instead of failing -- the

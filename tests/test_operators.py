@@ -139,17 +139,14 @@ def test_blas_masked():
 
 
 def test_restriction_prolongation_adjoint_lane_padded():
-    """Adjointness must survive the coarse lane padding (coarse_lane_pad):
-    zero-pad after restriction is the exact transpose of the slice before
-    prolongation."""
+    """Adjointness on unpadded extents whose halves are odd: the coarse grid
+    is exactly fine/2 on every axis, with no trailing padding."""
     import jax.numpy as jnp
 
-    from geometricmultigridpressuresolver_tpu.ops import domain as domain_ops
     from geometricmultigridpressuresolver_tpu.ops import transfer
 
-    fine_shape = (16, 16, 384)  # coarse natural z = 192 -> padded to 256
-    assert domain_ops.coarse_lane_pad(384) == 64
-    coarse_shape = (8, 8, 256)
+    fine_shape = (18, 22, 30)
+    coarse_shape = (9, 11, 15)
     rng = np.random.default_rng(5)
     fine = jnp.asarray(rng.standard_normal(fine_shape))
     coarse = jnp.asarray(rng.standard_normal(coarse_shape))
@@ -158,8 +155,8 @@ def test_restriction_prolongation_adjoint_lane_padded():
 
     r = transfer.restrict(fine, all_coarse)
     assert r.shape == coarse_shape
-    assert float(jnp.abs(r[:, :, 192:]).max()) == 0.0
     p = transfer.prolong_add(jnp.zeros(fine_shape), coarse, all_fine)
+    assert p.shape == fine_shape
 
     # <R f, c> == 1/(4*8) <f, P c>  (prolongation = 4 * 2^3 x restriction^T
     # per the separable weights)
@@ -169,14 +166,14 @@ def test_restriction_prolongation_adjoint_lane_padded():
 
 
 def test_mm_transfers_match_slice_path():
-    """MXU matmul transfers must equal the slice-based path (same operator,
+    """Matmul transfers must equal the slice-based path (same operator,
     different rounding) and stay exactly adjoint."""
     import jax.numpy as jnp
 
     from geometricmultigridpressuresolver_tpu.ops import transfer
 
     fine_shape = (16, 24, 384)
-    coarse_shape = (8, 12, 256)  # lane-padded coarse
+    coarse_shape = (8, 12, 192)
     rng = np.random.default_rng(9)
     fine = jnp.asarray(rng.standard_normal(fine_shape))
     coarse = jnp.asarray(rng.standard_normal(coarse_shape))

@@ -1,14 +1,14 @@
-"""Round-3 parity items: per-iteration residual history, the dx^2 scaling
-round trip, and the lane-alignment padding assertion (VERDICT r2 #8)."""
+"""Parity items: per-iteration residual history, the dx^2 scaling round
+trip, setup granularity and config validation."""
 
 import numpy as np
 import pytest
 
+import jax
 import jax.numpy as jnp
 
 from geometricmultigridpressuresolver_tpu import diagnostics
 from geometricmultigridpressuresolver_tpu.config import SolverConfig
-from geometricmultigridpressuresolver_tpu.ops import domain
 from geometricmultigridpressuresolver_tpu.solver import mgpcg
 
 from tests import helpers
@@ -136,31 +136,51 @@ def test_project_donate_matches_and_consumes():
     assert jnp.asarray(setup.liquid_mask).dtype == jnp.bool_
 
 
-def test_align_tile_extents_asserts_large_padding():
-    assert domain.align_tile_extents((256, 256, 256), 128) == (256, 256, 256)
-    with pytest.raises(ValueError, match="divide 128"):
-        domain.align_tile_extents((1024, 1024, 1024), 256)
+def test_setup_fusion_auto_resolution(monkeypatch):
+    """"auto" fuses the setup unless the fused program's compiled
+    workspace exceeds the device's free memory; a device that reports no
+    memory limit (the CPU backend) always fuses."""
+    from geometricmultigridpressuresolver_tpu.models import free_surface, sdf
+    from geometricmultigridpressuresolver_tpu.solver import mg as mg_mod
 
-
-def test_setup_fusion_auto_resolution():
-    """"auto" resolves per-level above the measured fused-workspace OOM
-    bracket (fused OK at 384^3's 95.4M-cell window, OOM at 448^3's
-    125.8M; see config.py / benchmarks/RESULTS.md round 4)."""
-    auto = SolverConfig()  # default is "auto"
+    labels, weights, mg_levels = helpers.expanded_domain(
+        helpers.simple_domain, 16
+    )
+    auto = SolverConfig()
     assert auto.setup_fusion == "auto"
-    assert auto.setup_fusion_resolved((448, 416, 512)) == "fused"  # 95.4M
-    assert auto.setup_fusion_resolved((512, 480, 512)) == "per-level"  # 125.8M
-    # Explicit modes pass through untouched regardless of size.
-    assert SolverConfig(setup_fusion="fused").setup_fusion_resolved(
-        (512, 480, 512)) == "fused"
-    assert SolverConfig(setup_fusion="per-level").setup_fusion_resolved(
-        (64, 64, 64)) == "per-level"
+    args = (
+        jnp.asarray(labels), tuple(jnp.asarray(w) for w in weights), mg_levels,
+        auto.boundary_width, auto.mg_dtype_resolved, None, None, False, None,
+    )
+    fused = mg_mod._device_hierarchy
+    assert mg_mod.device_free_bytes() is None
+    assert mg_mod.setup_fusion_resolved(auto, fused, args) == "fused"
+    monkeypatch.setattr(mg_mod, "device_free_bytes", lambda mesh=None: 1 << 40)
+    assert mg_mod.setup_fusion_resolved(auto, fused, args) == "fused"
+    monkeypatch.setattr(mg_mod, "device_free_bytes", lambda mesh=None: 1024)
+    assert mg_mod.setup_fusion_resolved(auto, fused, args) == "per-level"
+    # Explicit modes pass through untouched whatever the memory.
+    for mode in ("fused", "per-level"):
+        assert mg_mod.setup_fusion_resolved(
+            SolverConfig(setup_fusion=mode), fused, args
+        ) == mode
+    # A build that resolves per-level is the same problem as the fused one.
+    n = 16
+    liquid_phi, _ = sdf.splash_scene((n, n, n))
+    box = sdf.open_box_weights((n, n, n))
+    got = free_surface.build_setup(liquid_phi, box, config=auto)
+    monkeypatch.undo()
+    ref = free_surface.build_setup(
+        liquid_phi, box, config=SolverConfig(setup_fusion="fused")
+    )
+    for a, b in zip(jax.tree.leaves(ref.problem), jax.tree.leaves(got.problem)):
+        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
 
 
 def test_config_rejects_typo_modes():
     with pytest.raises(ValueError, match="setup_fusion"):
         SolverConfig(setup_fusion="per_level")
-    with pytest.raises(ValueError, match="kernel_mode"):
-        SolverConfig(kernel_mode="palas")
+    with pytest.raises(ValueError, match="transfer_mode"):
+        SolverConfig(transfer_mode="auto")
     with pytest.raises(ValueError, match="interior_smoother"):
         SolverConfig(interior_smoother="cheby")

@@ -108,251 +108,3 @@ def test_sharded_solve_lowers_to_collectives(eight_device_mesh):
     )
     assert "collective-permute" in hlo or "all-to-all" in hlo, "no halo exchange"
     assert "all-reduce" in hlo, "no cross-device reduction"
-
-
-def test_sharded_pallas_smoother_matches_jnp():
-    """The shard_map + halo-exchange fused smoother must equal the jnp
-    smoothing block (parallel/pallas_sharded.py; interpret mode on the
-    virtual CPU mesh)."""
-    from geometricmultigridpressuresolver_tpu.parallel import pallas_sharded
-    from geometricmultigridpressuresolver_tpu.solver import mg as mg_mod
-
-    mesh = make_mesh(8)  # (2, 2, 2) -- z sharded: ineligible
-    labels, weights, mg_levels = helpers.expanded_domain(
-        helpers.sine_dirichlet_domain, 32, fractional=True
-    )
-    config = SolverConfig(solve_dtype=jnp.float32)
-    hier = mg_mod.build_hierarchy(labels, weights, mg_levels, config)
-    c = hier.levels[0]
-
-    # A z-unsharded mesh for the kernel path.
-    import jax as _jax
-
-    mesh_xy = jax.sharding.Mesh(
-        np.array(_jax.devices()[:8]).reshape(4, 2, 1), ("x", "y", "z")
-    )
-    spec = pallas_sharded._level_spec(mesh_xy, c.shape)
-    assert spec == jax.sharding.PartitionSpec("x", "y", None)
-    # Eligibility: sharded local cores tile; z unsharded (128-alignment is
-    # a Mosaic constraint, irrelevant in interpret mode).
-    assert not pallas_sharded.sharded_eligible(
-        c.shape, pallas_sharded._level_spec(mesh, c.shape), mesh, 0,
-        hier.num_levels,
-    )
-
-    rng = np.random.default_rng(13)
-    x = jnp.where(
-        c.solvable, jnp.asarray(rng.standard_normal(c.shape), jnp.float32), 0.0
-    )
-    b = jnp.where(
-        c.solvable, jnp.asarray(rng.standard_normal(c.shape), jnp.float32), 0.0
-    )
-
-    for forward in (True, False):
-        ref = mg_mod._smooth_level(x, b, c, config, forward=forward)
-        got = pallas_sharded.smooth_level_sharded(
-            x, b, c, config, forward=forward, mesh=mesh_xy, interpret=True
-        )
-        np.testing.assert_allclose(
-            np.asarray(got), np.asarray(ref), atol=2e-6
-        )
-
-
-def test_prehaloed_coefficients_cut_exchanges():
-    """VERDICT item: the five constant coefficient halos are exchanged once
-    per solve, not per smoother call -- the per-call smoother exchanges
-    only rhs + solution (2 arrays instead of 7), with identical output."""
-    from geometricmultigridpressuresolver_tpu.parallel import pallas_sharded
-    from geometricmultigridpressuresolver_tpu.solver import mg as mg_mod
-
-    labels, weights, mg_levels = helpers.expanded_domain(
-        helpers.sine_dirichlet_domain, 32, fractional=True
-    )
-    config = SolverConfig(solve_dtype=jnp.float32)
-    hier = mg_mod.build_hierarchy(labels, weights, mg_levels, config)
-    c = hier.levels[0]
-
-    mesh_xy = jax.sharding.Mesh(
-        np.array(jax.devices()[:8]).reshape(4, 2, 1), ("x", "y", "z")
-    )
-    prehaloed = pallas_sharded.prehalo_coeffs(c, mesh_xy)
-    assert prehaloed is not None
-
-    rng = np.random.default_rng(17)
-    x = jnp.where(
-        c.solvable, jnp.asarray(rng.standard_normal(c.shape), jnp.float32), 0.0
-    )
-    b = jnp.where(
-        c.solvable, jnp.asarray(rng.standard_normal(c.shape), jnp.float32), 0.0
-    )
-
-    ref = mg_mod._smooth_level(x, b, c, config, forward=True)
-    got = pallas_sharded.smooth_level_sharded(
-        x, b, c, config, forward=True, mesh=mesh_xy, interpret=True,
-        prehaloed=prehaloed,
-    )
-    np.testing.assert_allclose(np.asarray(got), np.asarray(ref), atol=2e-6)
-
-    # Per-call communication drops from 7 exchanged arrays to 2: count
-    # ppermute equations in the traced smoother (prehaloed args are inputs).
-    def with_cache(x, b, pre):
-        return pallas_sharded.smooth_level_sharded(
-            x, b, c, config, forward=True, mesh=mesh_xy, interpret=True,
-            prehaloed=pre,
-        )
-
-    def without_cache(x, b):
-        return pallas_sharded.smooth_level_sharded(
-            x, b, c, config, forward=True, mesh=mesh_xy, interpret=True,
-        )
-
-    n_with = str(jax.make_jaxpr(with_cache)(x, b, prehaloed)).count("ppermute")
-    n_without = str(jax.make_jaxpr(without_cache)(x, b)).count("ppermute")
-    assert n_with * 3 <= n_without, (n_with, n_without)
-
-
-def test_sharded_cg_step_matches_jnp():
-    """shard_map + halo CG-step kernel == the jnp step (p', Ap', <p',Ap'>),
-    with the dot psum'd across devices deterministically."""
-    from geometricmultigridpressuresolver_tpu.ops import blas, stencil
-    from geometricmultigridpressuresolver_tpu.parallel import pallas_sharded
-    from geometricmultigridpressuresolver_tpu.solver import mg as mg_mod
-
-    labels, weights, mg_levels = helpers.expanded_domain(
-        helpers.sine_dirichlet_domain, 32, fractional=True
-    )
-    config = SolverConfig(solve_dtype=jnp.float32)
-    hier = mg_mod.build_hierarchy(labels, weights, mg_levels, config)
-    c = hier.levels[0]
-
-    mesh_xy = jax.sharding.Mesh(
-        np.array(jax.devices()[:8]).reshape(4, 2, 1), ("x", "y", "z")
-    )
-    rng = np.random.default_rng(23)
-    z = jnp.where(
-        c.solvable, jnp.asarray(rng.standard_normal(c.shape), jnp.float32), 0.0
-    )
-    p = jnp.where(
-        c.solvable, jnp.asarray(rng.standard_normal(c.shape), jnp.float32), 0.0
-    )
-    beta = jnp.float32(0.4113)
-
-    p_ref = z + beta * p
-    ap_ref = jnp.where(c.solvable, stencil.apply_poisson(p_ref, c), 0.0)
-    pap_ref = float(blas.dot(p_ref, ap_ref, c.solvable))
-
-    pn, ap, pap = pallas_sharded.cg_step_sharded(
-        z, p, beta, c, config, mesh_xy, interpret=True
-    )
-    np.testing.assert_allclose(np.asarray(pn), np.asarray(p_ref), atol=2e-6)
-    np.testing.assert_allclose(np.asarray(ap), np.asarray(ap_ref), atol=2e-5)
-    np.testing.assert_allclose(float(pap), pap_ref, rtol=1e-5)
-
-
-def _fixture_sharded_level():
-    from geometricmultigridpressuresolver_tpu.solver import mg as mg_mod
-
-    labels, weights, mg_levels = helpers.expanded_domain(
-        helpers.sine_dirichlet_domain, 32, fractional=True
-    )
-    config = SolverConfig(solve_dtype=jnp.float32)
-    hier = mg_mod.build_hierarchy(labels, weights, mg_levels, config)
-    c = hier.levels[0]
-    mesh_xy = jax.sharding.Mesh(
-        np.array(jax.devices()[:8]).reshape(4, 2, 1), ("x", "y", "z")
-    )
-    rng = np.random.default_rng(29)
-    mk = lambda: jnp.where(  # noqa: E731
-        c.solvable, jnp.asarray(rng.standard_normal(c.shape), jnp.float32), 0.0
-    )
-    return config, c, mesh_xy, mk
-
-
-def test_sharded_smoother_fusions_match_jnp():
-    """VERDICT r2 #3: the sharded smoother inherits the round-2 fusions --
-    zero-x streaming skip, fused downstroke residual, in-kernel dot with
-    psum -- with outputs equal to the jnp operators."""
-    from geometricmultigridpressuresolver_tpu.ops import blas, stencil
-    from geometricmultigridpressuresolver_tpu.parallel import pallas_sharded
-    from geometricmultigridpressuresolver_tpu.solver import mg as mg_mod
-
-    config, c, mesh_xy, mk = _fixture_sharded_level()
-    b = mk()
-    zero = jnp.zeros_like(b)
-
-    # zero_x + emit_residual (the downstroke pair) in one sharded call.
-    x_ref = mg_mod._smooth_level(zero, b, c, config, forward=True)
-    r_ref = stencil.residual(x_ref, b, c)
-    x_got, r_got = pallas_sharded.smooth_level_sharded(
-        zero, b, c, config, forward=True, mesh=mesh_xy, interpret=True,
-        x_is_zero=True, emit_residual=True,
-    )
-    np.testing.assert_allclose(np.asarray(x_got), np.asarray(x_ref), atol=2e-6)
-    np.testing.assert_allclose(np.asarray(r_got), np.asarray(r_ref), atol=2e-5)
-
-    # emit_dot (the upstroke rho fusion), psum'd across the mesh.
-    x0 = mk()
-    x_ref2 = mg_mod._smooth_level(x0, b, c, config, forward=False)
-    dot_ref = float(blas.dot(x_ref2, b, c.solvable))
-    x_got2, dot = pallas_sharded.smooth_level_sharded(
-        x0, b, c, config, forward=False, mesh=mesh_xy, interpret=True,
-        emit_dot=True,
-    )
-    np.testing.assert_allclose(np.asarray(x_got2), np.asarray(x_ref2), atol=2e-6)
-    np.testing.assert_allclose(float(dot), dot_ref, rtol=1e-5)
-
-
-def test_padded_flag_under_multi_device_mesh():
-    """VERDICT r3 #6: on a >1-device mesh, replicated coarse levels may take
-    the padded kernel view while the fine level runs the sharded path.  The
-    whole V-cycle with BOTH flag kinds engaged must match the jnp path.
-
-    Geometry: the 64^3 splash scene's fine level is (96, 96, 128) --
-    lane-aligned, sharded-eligible on a z-unsharded (2, 2, 1) mesh -- and
-    with a deep hierarchy (coarse_dof_target=1) levels 3-4 fall below the
-    grid_pspec per-device minimum, replicate, and become pad-eligible once
-    the pad guards are loosened (solver/mg.py _pallas_level_flags
-    _single_device_flag on the replicated branch).
-    """
-    from geometricmultigridpressuresolver_tpu.models import free_surface, sdf
-    from geometricmultigridpressuresolver_tpu.parallel import shard_problem
-    from geometricmultigridpressuresolver_tpu.solver import mg as mg_mod
-
-    cfg_pad = SolverConfig(
-        solve_dtype=jnp.float32, mg_dtype=jnp.float32,
-        coarse_dof_target=1, kernel_mode="pallas", pallas_interpret=True,
-        pallas_pad_coarse=True, pallas_pad_min_cells=0,
-        pallas_pad_max_ratio=1e9,
-    )
-    liquid_phi, _ = sdf.splash_scene((64, 64, 64))
-    weights = sdf.open_box_weights((64, 64, 64))
-    setup = free_surface.build_setup(liquid_phi, weights, config=cfg_pad)
-    hier = setup.problem.hier
-
-    mesh_xy = jax.sharding.Mesh(
-        np.array(jax.devices()[:4]).reshape(2, 2, 1), ("x", "y", "z")
-    )
-    flags = mg_mod._pallas_level_flags(hier, cfg_pad, mesh_xy)
-    assert "sharded" in flags, flags
-    assert "padded" in flags, flags
-
-    c0 = hier.levels[0]
-    rng = np.random.default_rng(37)
-    b = jnp.where(
-        c0.solvable, jnp.asarray(rng.standard_normal(c0.shape), jnp.float32),
-        0.0,
-    )
-    cfg_jnp = SolverConfig(
-        solve_dtype=jnp.float32, mg_dtype=jnp.float32,
-        coarse_dof_target=1, kernel_mode="jnp",
-    )
-    ref = mg_mod.v_cycle(hier, jnp.zeros_like(b), b, cfg_jnp)
-
-    problem_s = shard_problem(setup.problem, mesh_xy)
-    b_s = shard_grid(b, mesh_xy)
-    got = mg_mod.v_cycle(
-        problem_s.hier, jnp.zeros_like(b_s), b_s, cfg_pad, mesh=mesh_xy
-    )
-    scale = float(jnp.max(jnp.abs(ref))) or 1.0
-    diff = float(jnp.max(jnp.abs(got - ref))) / scale
-    assert diff < 2e-5, diff

@@ -144,10 +144,35 @@ def test_sharded_setup_per_level_path(mesh8):
     _assert_bit_identical(ref.problem, got.problem, "PoissonProblem")
 
 
-def test_sharded_setup_auto_threshold_scales_with_mesh():
-    """setup_fusion="auto" resolves against PER-DEVICE cells on a mesh: a
-    window too big to fuse on one chip fuses across 8."""
+def test_sharded_setup_auto_threshold_scales_with_mesh(mesh8, monkeypatch):
+    """On a mesh, setup_fusion="auto" weighs the fused program's PER-DEVICE
+    workspace: with free memory between the one-device and the 8-device
+    workspace, the build fuses on the mesh and not on one device."""
+    from geometricmultigridpressuresolver_tpu.parallel import shard_grid
+    from geometricmultigridpressuresolver_tpu.solver import mg as mg_mod
+    from tests import helpers
+
+    labels, weights, mg_levels = helpers.expanded_domain(helpers.simple_domain, 32)
     config = SolverConfig(setup_fusion="auto")
-    big = (512, 512, 512)  # 134M cells: per-level on 1 device, fused on 8
-    assert config.setup_fusion_resolved(big, 1) == "per-level"
-    assert config.setup_fusion_resolved(big, 8) == "fused"
+    fused = mg_mod._device_hierarchy
+
+    def args(mesh):
+        place = (lambda a: a) if mesh is None else (lambda a: shard_grid(a, mesh))
+        return (
+            place(jnp.asarray(labels)),
+            tuple(place(jnp.asarray(w)) for w in weights),
+            mg_levels, config.boundary_width, config.mg_dtype_resolved,
+            None, None, False, mesh,
+        )
+
+    def workspace(mesh):
+        mem = fused.lower(*args(mesh)).compile().memory_analysis()
+        return (mem.temp_size_in_bytes + mem.output_size_in_bytes
+                - mem.alias_size_in_bytes)
+
+    one, eight = workspace(None), workspace(mesh8)
+    assert eight < one
+    free = (one + eight) // 2
+    monkeypatch.setattr(mg_mod, "device_free_bytes", lambda mesh=None: free)
+    assert mg_mod.setup_fusion_resolved(config, fused, args(None)) == "per-level"
+    assert mg_mod.setup_fusion_resolved(config, fused, args(mesh8), mesh8) == "fused"

@@ -238,7 +238,7 @@ def test_upwind_matches_semi_lagrangian_uniform_flow():
 
 
 def test_run_fused_matches_run_upwind():
-    """run_fused == run with the TPU-native upwind advection scheme."""
+    """run_fused == run with the gather-free upwind advection scheme."""
     n = 24
     config = SolverConfig(tolerance=1e-8, max_iterations=300,
                           advection="upwind")

@@ -328,3 +328,35 @@ def test_boundary_iterations_schedule_converges(k):
     np.testing.assert_allclose(
         np.asarray(got.x), np.asarray(base.x), atol=5e-7
     )
+
+
+@pytest.mark.parametrize("axis", [0, 1, 2])
+def test_exterior_padding_leaves_solution_unchanged(axis):
+    """Appending EXTERIOR cells along any axis adds no DOF and no coupling,
+    so the MGPCG solution on the original cells is unchanged: windows need
+    no extent beyond what the hierarchy requires."""
+    labels, weights, mg_levels = helpers.expanded_domain(
+        helpers.sine_dirichlet_domain, 16, fractional=True
+    )
+    extra = 2 * 2 ** (mg_levels - 1)  # keeps every level's extent even
+    pad = [(0, 0)] * 3
+    pad[axis] = (0, extra)
+    big_labels = np.pad(labels, pad, constant_values=helpers.EXT)
+    big_weights = [np.pad(w, pad) for w in weights]
+    config = SolverConfig(tolerance=1e-10)
+    rhs = helpers.random_solvable_field(labels, seed=12)
+
+    base = mgpcg.build_problem(labels, weights, mg_levels, config, validate=True)
+    big = mgpcg.build_problem(big_labels, big_weights, mg_levels, config, validate=True)
+    assert big.hier.num_levels == base.hier.num_levels
+    x = mgpcg.solve(base, jnp.asarray(rhs), config=config)
+    xb = mgpcg.solve(big, jnp.asarray(np.pad(rhs, pad)), config=config)
+
+    assert int(xb.iterations) == int(x.iterations)
+    region = tuple(slice(0, s) for s in labels.shape)
+    np.testing.assert_allclose(
+        np.asarray(xb.x)[region], np.asarray(x.x), rtol=0,
+        atol=1e-9 * float(np.abs(np.asarray(x.x)).max()),
+    )
+    appended = np.pad(np.zeros(labels.shape, bool), pad, constant_values=True)
+    assert not np.asarray(xb.x)[appended].any()
